@@ -1,18 +1,17 @@
-"""Public library API (parfastaai_tpu.api) vs the CLI's golden outputs."""
+"""Public library API (parfastaai_jax.api) vs the CLI's golden outputs."""
 
 import numpy as np
 import pytest
 
-import parfastaai_tpu.api as pfa
-from parfastaai_tpu.types import PFAAIError
+import parfastaai_jax.api as pfa
+from parfastaai_jax.types import PFAAIError
 
 
-def test_aji_all_vs_all_matches_golden_csv(subset1_db, data_dir, tmp_path):
+def test_aji_all_vs_all_matches_golden_csv(subset1_db, subset1_csv, tmp_path):
     res = pfa.aji(subset1_db)
     out = tmp_path / "api.csv"
     res.to_csv(str(out))
-    golden = open(f"{data_dir}/xdb_subset1_aji_matrix_wheader.csv", "rb").read()
-    assert out.read_bytes() == golden
+    assert out.read_bytes() == subset1_csv
     # matrix == the parsed CSV values
     g = len(res.row_names)
     parsed = np.genfromtxt(
@@ -64,28 +63,26 @@ def test_aji_fast_engine_close_to_exact(subset1_db):
     np.testing.assert_allclose(fast.matrix, res.matrix, rtol=1e-6, atol=1e-7)
 
 
-def test_aji_to_csv_streamed_exact(subset1_db, data_dir, tmp_path):
-    """engine="streamed-exact" is byte-identical to the reference golden."""
-    import parfastaai_tpu.api as pfa
+def test_aji_to_csv_streamed_exact(subset1_db, subset1_csv, tmp_path):
+    """engine="streamed-exact" is byte-identical to the golden CSV."""
+    import parfastaai_jax.api as pfa
 
     out = tmp_path / "se.csv"
     pfa.aji_to_csv(str(out), subset1_db, engine="streamed-exact", band=2)
-    ref = open(f"{data_dir}/xdb_subset1_aji_matrix_wheader.csv", "rb").read()
-    assert out.read_bytes() == ref
+    assert out.read_bytes() == subset1_csv
 
 
 def test_streamed_exact_rejects_contradictory_args(subset1_db, tmp_path):
-    """engine='streamed-exact' + approx/precise must raise (the CLI rejects
-    the same combinations; the two front doors must agree).  ``mesh``
-    composes (r5): the mesh-sharded count production is byte-identical."""
+    """engine='streamed-exact' takes no kernel-divide arguments (the CLI has
+    none either; the two front doors must agree).  ``mesh`` composes: the
+    mesh-sharded count production is byte-identical."""
     import pytest
 
-    import parfastaai_tpu.api as pfa
-    from parfastaai_tpu.types import PFAAIError
+    import parfastaai_jax.api as pfa
 
     out = str(tmp_path / "o.csv")
     for kw in ({"approx": True}, {"precise": True}):
-        with pytest.raises(PFAAIError):
+        with pytest.raises(TypeError):
             pfa.aji_to_csv(out, subset1_db, engine="streamed-exact", **kw)
     # mesh is accepted and byte-identical to the meshless banded run.
     ref = str(tmp_path / "ref.csv")
@@ -95,11 +92,11 @@ def test_streamed_exact_rejects_contradictory_args(subset1_db, tmp_path):
 
 
 def test_api_staged_passthrough(subset1_db, tmp_path, monkeypatch):
-    """The library API exposes the CLI's --staged (r4): fast and streamed
+    """The library API exposes the CLI's --staged: fast and streamed
     engines accept staged=True and produce the same values as resident."""
     import numpy as np
 
-    import parfastaai_tpu.api as pfa
+    import parfastaai_jax.api as pfa
 
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
     resident = pfa.aji(subset1_db, engine="fast", staged=False)

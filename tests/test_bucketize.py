@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from parfastaai_tpu.engine import compute, compute_fast
-from parfastaai_tpu.etl.database import SCPDatabase, bucketize_presence
-from parfastaai_tpu.modes import all_vs_all
+from parfastaai_jax.engine import compute, compute_fast
+from parfastaai_jax.etl.database import SCPDatabase, bucketize_presence
+from parfastaai_jax.modes import all_vs_all
 
 
 @pytest.fixture(scope="module")
@@ -50,8 +50,8 @@ def test_compute_fast_bucketed_matches_exact(combo):
 
 def test_single_bucket_degenerate():
     """Uniform widths => one bucket, identical tensor."""
-    from parfastaai_tpu.etl.database import PresenceData
-    from parfastaai_tpu.types import DBMetaData
+    from parfastaai_jax.etl.database import PresenceData
+    from parfastaai_jax.types import DBMetaData
 
     rng = np.random.default_rng(0)
     m = (rng.random((5, 6, 128)) < 0.5).astype(np.uint8)
@@ -68,8 +68,8 @@ def test_single_bucket_degenerate():
 
 
 def _wide_presence(width=32900, P=2, G=8):
-    from parfastaai_tpu.etl.database import PresenceData
-    from parfastaai_tpu.types import DBMetaData
+    from parfastaai_jax.etl.database import PresenceData
+    from parfastaai_jax.types import DBMetaData
 
     rng = np.random.default_rng(3)
     m = (rng.random((P, G, width)) < 0.05).astype(np.uint8)
@@ -86,18 +86,19 @@ def _wide_presence(width=32900, P=2, G=8):
 
 
 def test_wide_buckets_prealign_to_k_block():
-    """Buckets wider than MAX_K_SINGLE_BLOCK come out K_BLOCK-aligned from
-    the HOST-side plan, so the jitted kernels' _pad_k is a no-op — a
-    device-side pad of a multi-GB slab materializes a whole HLO-temp copy
-    (measured OOMing a 16 GB HBM on the G=4096 K=51200 staged workload)."""
-    from parfastaai_tpu.constants import K_BLOCK, MAX_K_SINGLE_BLOCK
-    from parfastaai_tpu.etl.database import bucket_bounds
+    """Buckets of any width come out of the HOST-side plan aligned to LANE
+    (a whole number of the int8 matmul's 32-deep contraction steps), so the
+    device never pads K — a device-side pad of a multi-GB slab
+    materializes a whole copy of it."""
+    from parfastaai_jax.constants import LANE
+    from parfastaai_jax.etl.database import bucket_bounds
 
     pres = _wide_presence()
     _, bounds = bucket_bounds(pres.widths)
     assert len(bounds) == 1
     kb = bounds[0][2]
-    assert kb > MAX_K_SINGLE_BLOCK and kb % K_BLOCK == 0 and kb >= 32900
+    assert LANE % 32 == 0
+    assert kb % LANE == 0 and 32900 <= kb < 32900 + LANE
     # bucketize pads the slice past the tensor's own width with zeros.
     buckets = bucketize_presence(pres)
     idx, m_b, t_b = buckets[0]
@@ -111,8 +112,8 @@ def test_staged_slab_fetch_pads_and_bounds_memory(monkeypatch):
     """The slab store gathers into the padded width (zeros past the
     tensor's edge) and evicts BEFORE uploading, so the cap is never
     transiently exceeded by a new slab (beyond the >=2 live-slab floor)."""
-    from parfastaai_tpu.engine import _slab_store
-    from parfastaai_tpu.etl.database import bucket_bounds
+    from parfastaai_jax.engine import _slab_store
+    from parfastaai_jax.etl.database import bucket_bounds
 
     pres = _wide_presence()
     _, bounds = bucket_bounds(pres.widths)

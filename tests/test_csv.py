@@ -4,16 +4,16 @@ src/main.cpp:133-175; goldens data/*_aji_matrix_wheader.csv)."""
 import numpy as np
 import pytest
 
-from parfastaai_tpu.engine import compute
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.io.csv_writer import write_aji_csv
-from parfastaai_tpu.io.fmtfloat import format_double
-from parfastaai_tpu.modes import all_vs_all
+from parfastaai_jax.engine import compute
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.io.csv_writer import write_aji_csv
+from parfastaai_jax.io.fmtfloat import format_double
+from parfastaai_jax.modes import all_vs_all
 
 
 @pytest.mark.parametrize("name", ["xdb_subset1", "xdb_subset2"])
-def test_csv_byte_parity(data_dir, tmp_path, name):
-    db = SCPDatabase(f"{data_dir}/{name}.db")
+def test_csv_byte_parity(goldens, tmp_path, name):
+    db = SCPDatabase(f"{goldens}/{name}.db")
     pres = db.load_presence()
     db.close()
     pairs = all_vs_all(db.meta)
@@ -21,7 +21,7 @@ def test_csv_byte_parity(data_dir, tmp_path, name):
     out = tmp_path / "out.csv"
     write_aji_csv(str(out), pairs, result.aji)
     ours = out.read_bytes()
-    ref = open(f"{data_dir}/{name}_aji_matrix_wheader.csv", "rb").read()
+    ref = open(f"{goldens}/{name}_aji_matrix_wheader.csv", "rb").read()
     assert ours == ref
 
 

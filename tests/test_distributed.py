@@ -4,10 +4,10 @@ import csv
 
 import numpy as np
 
-from parfastaai_tpu.cli import run
-from parfastaai_tpu.engine import compute, compute_sharded
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.modes import all_vs_all
+from parfastaai_jax.cli import run
+from parfastaai_jax.engine import compute, compute_sharded
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.modes import all_vs_all
 
 
 def _load(path):
@@ -50,8 +50,8 @@ def test_cli_mesh_flag_matches_exact(combo12_db, tmp_path):
 def test_streamed_over_mesh_matches_single(combo12_db, tmp_path, monkeypatch):
     """Streamed path with row bands sharded over a 4-device mesh must produce
     the identical CSV to the single-device streamed path."""
-    from parfastaai_tpu.engine import compute_streamed
-    from parfastaai_tpu.parallel.mesh import make_mesh
+    from parfastaai_jax.engine import compute_streamed
+    from parfastaai_jax.parallel.mesh import make_mesh
 
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
     meta, pres = _load(combo12_db)
@@ -86,10 +86,8 @@ def test_cli_streamed_all_modes(combo12_db, subset1_db, subset2_db, tmp_path):
 
     # query-subset
     qfile = tmp_path / "q.txt"
-    qfile.write_text(
-        "Xanthomonas_albilineans_GCA_000962915_1.fna.gz\n"
-        "Xanthomonas_albilineans_GCA_000963025_1.fna.gz\n"
-    )
+    meta, _ = _load(combo12_db)
+    qfile.write_text(meta.genome_set[0] + "\n" + meta.genome_set[5] + "\n")
     e2, s2 = tmp_path / "e2.csv", tmp_path / "s2.csv"
     assert run([combo12_db, str(e2), "--quiet", "-q", str(qfile)]) == 0
     assert run(
@@ -118,12 +116,12 @@ def test_cli_streamed_all_modes(combo12_db, subset1_db, subset2_db, tmp_path):
 
 
 def test_qt_compat_on_every_device_path(subset1_db, subset2_db):
-    """VERDICT r1 item 2: --fast and --mesh must honor the two-database
-    compat T-swap (and the corrected denominators with compat off) instead
-    of silently falling back to a single-device exact run."""
-    from parfastaai_tpu.engine import compute_fast
-    from parfastaai_tpu.etl.database import QueryTargetDatabase
-    from parfastaai_tpu.modes import query_target
+    """--fast and --mesh must honor the two-database compat T-swap (and the
+    corrected denominators with compat off) instead of silently falling
+    back to a single-device exact run."""
+    from parfastaai_jax.engine import compute_fast
+    from parfastaai_jax.etl.database import QueryTargetDatabase
+    from parfastaai_jax.modes import query_target
 
     db = QueryTargetDatabase(subset1_db, subset2_db)
     pres = db.load_presence()
@@ -139,66 +137,12 @@ def test_qt_compat_on_every_device_path(subset1_db, subset2_db):
         np.testing.assert_allclose(sharded.s, exact.s, rtol=1e-6)
 
 
-def test_streamed_mesh_pallas_interpret(combo12_db, tmp_path, monkeypatch):
-    """compute_streamed's TPU mesh branch (Pallas rect kernel inside
-    shard_map, VERDICT r2 item 3) in interpret mode on the 4-device virtual
-    mesh: the CSV must match the exact engine to f32 tolerance, and the
-    two-database compat denominators must ride through the Pallas body."""
-    from parfastaai_tpu.engine import compute_streamed
-    from parfastaai_tpu.parallel.mesh import make_mesh
-
-    monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
-    monkeypatch.setenv("PARFASTAAI_PALLAS_INTERPRET", "1")
-    meta, pres = _load(combo12_db)
-    g = len(meta.genome_set)
-    ids = np.arange(g, dtype=np.int32)
-    exact_csv = tmp_path / "exact.csv"
-    assert run([combo12_db, str(exact_csv), "--quiet"]) == 0
-    meshed = tmp_path / "meshed.csv"
-    compute_streamed(
-        pres, ids, ids, str(meshed), meta.genome_set, meta.genome_set,
-        band=4, col_chunk=8, mesh=make_mesh(4, 1),
-    )
-    _, _, want = _read_csv(str(exact_csv))
-    _, _, got = _read_csv(str(meshed))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
-    # scp > 1: protein shards merge with psum around the Pallas kernel.
-    meshed2 = tmp_path / "meshed2.csv"
-    compute_streamed(
-        pres, ids, ids, str(meshed2), meta.genome_set, meta.genome_set,
-        band=4, col_chunk=8, mesh=make_mesh(2, 2),
-    )
-    _, _, got2 = _read_csv(str(meshed2))
-    np.testing.assert_allclose(got2, want, rtol=1e-5, atol=1e-7)
-
-
-def test_sharded_rect_pallas_interpret(subset1_db, subset2_db, monkeypatch):
-    """compute_sharded's rectangular (two-database) mesh path with the Pallas
-    kernel in interpret mode, both compat settings."""
-    from parfastaai_tpu.etl.database import QueryTargetDatabase
-    from parfastaai_tpu.modes import query_target
-
-    monkeypatch.setenv("PARFASTAAI_PALLAS_INTERPRET", "1")
-    db = QueryTargetDatabase(subset1_db, subset2_db)
-    pres = db.load_presence()
-    db.close()
-    for compat in (True, False):
-        pairs = query_target(db.meta, compat_qt_t_swap=compat)
-        exact = compute(pres, pairs)
-        sharded = compute_sharded(pres, pairs, n_rows=2, n_scp=2)
-        np.testing.assert_array_equal(sharded.n, exact.n)
-        # The kernel's default Newton-reciprocal divide carries ~1.4e-7
-        # relative error per protein term (ops.pallas_intersect._accumulate);
-        # accumulated over ~80 proteins the fused contract is ~1e-5 on S.
-        np.testing.assert_allclose(sharded.s, exact.s, rtol=1e-5)
-
-
 def test_streamed_mesh_rows_scp(combo12_db, tmp_path, monkeypatch):
-    """VERDICT r1 item 5: --streamed --mesh ROWS,SCP uses both axes.
+    """--streamed --mesh ROWS,SCP uses both axes.
     rows-only sharding is bit-equal to single-device; adding the scp axis
     reassociates the f32 protein sum (psum merge) so it gets a tolerance."""
-    from parfastaai_tpu.engine import compute_streamed
-    from parfastaai_tpu.parallel.mesh import make_mesh
+    from parfastaai_jax.engine import compute_streamed
+    from parfastaai_jax.parallel.mesh import make_mesh
 
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
     meta, pres = _load(combo12_db)
@@ -226,12 +170,12 @@ def test_meta_only_stub_raises_on_data_access():
     """MetaOnlyM (the meta-only broadcast's presence stand-in) exposes shape
     and dtype for the routing arithmetic but raises PFAAIError on any data
     access — a silently-zero tensor would corrupt results, a loud error
-    cannot (VERDICT r4 missing #2)."""
+    cannot."""
     import numpy as np
     import pytest
 
-    from parfastaai_tpu.etl.database import MetaOnlyM
-    from parfastaai_tpu.types import PFAAIError
+    from parfastaai_jax.etl.database import MetaOnlyM
+    from parfastaai_jax.types import PFAAIError
 
     stub = MetaOnlyM((3, 5, 7))
     assert stub.shape == (3, 5, 7)

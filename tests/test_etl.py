@@ -6,29 +6,34 @@ import sqlite3
 import numpy as np
 import pytest
 
-from parfastaai_tpu.etl import goldens
-from parfastaai_tpu.etl.database import QueryTargetDatabase, SCPDatabase
-from parfastaai_tpu.types import PFAAIError
+from parfastaai_jax.etl import goldens as golden_io
+from parfastaai_jax.etl.database import QueryTargetDatabase, SCPDatabase
+from parfastaai_jax.types import PFAAIError
 
 
 @pytest.mark.parametrize("name", ["xdb_subset1", "xdb_subset2"])
-def test_t_matrix_matches_golden(data_dir, name):
-    db = SCPDatabase(f"{data_dir}/{name}.db")
+def test_t_matrix_matches_golden(goldens, name):
+    db = SCPDatabase(f"{goldens}/{name}.db")
     t = db.load_t_matrix()
-    ref = goldens.read_dmatrix_i32(f"{data_dir}/{name}_t_matrix.bin")
+    ref = golden_io.read_dmatrix_i32(f"{goldens}/{name}_t_matrix.bin")
     np.testing.assert_array_equal(t, ref)
     db.close()
 
 
 def test_metadata(subset1_db):
+    import sqlite3
+
+    conn = sqlite3.connect(subset1_db)
+    n_scp = conn.execute("SELECT COUNT(DISTINCT SCP_acc) FROM scp_data").fetchone()[0]
+    conn.close()
     db = SCPDatabase(subset1_db)
-    assert len(db.meta.protein_set) == 79
+    assert len(db.meta.protein_set) == n_scp
     assert len(db.meta.genome_set) == 4
     assert all(n.endswith(".fna.gz") for n in db.meta.genome_set)
     db.close()
 
 
-def test_presence_consistency(subset1_db, data_dir):
+def test_presence_consistency(subset1_db, goldens):
     """Presence row sums must equal T (the '_genomes' and '_tetras' tables are
     mutually consistent, survey §7.2), and per-column sums reproduce Lc."""
     db = SCPDatabase(subset1_db)
@@ -41,7 +46,7 @@ def test_presence_consistency(subset1_db, data_dir):
         assert pres.m[p, :, pres.widths[p] :].sum() == 0
         assert (pres.m[p, :, : pres.widths[p]].sum(axis=0) > 0).all()
     # Scatter per-protein column sums back to tetramer ids -> Lc.
-    lc_ref = goldens.read_i32_vector(f"{data_dir}/xdb_subset1_lc_array.bin")
+    lc_ref = golden_io.read_i32_vector(f"{goldens}/xdb_subset1_lc_array.bin")
     lc = np.zeros(160000, dtype=np.int32)
     for p in range(pres.n_proteins):
         w = pres.widths[p]
@@ -52,13 +57,13 @@ def test_presence_consistency(subset1_db, data_dir):
     db.close()
 
 
-def test_qt_metadata_and_t(subset1_db, subset2_db, data_dir):
+def test_qt_metadata_and_t(subset1_db, subset2_db, goldens):
     db = QueryTargetDatabase(subset1_db, subset2_db)
     assert len(db.meta.protein_set) == 79
     assert len(db.meta.genome_set) == 4
     assert len(db.meta.query_genome_set) == 4
     t = db.load_t_matrix()
-    ref = goldens.read_dmatrix_i32(f"{data_dir}/xdb_qt_t_matrix.bin")
+    ref = golden_io.read_dmatrix_i32(f"{goldens}/xdb_qt_t_matrix.bin")
     np.testing.assert_array_equal(t, ref)
     db.close()
 

@@ -1,14 +1,14 @@
-"""Fused device paths: XLA scan, Pallas kernel (interpret mode on CPU), and
-the fast engine path, all cross-checked against the exact engine."""
+"""Fused device paths: the XLA scan and the fast engine path, cross-checked
+against the exact engine."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parfastaai_tpu.engine import compute, compute_fast
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.modes import all_vs_all
-from parfastaai_tpu.ops.fused import fused_aji, pair_counts_device
+from parfastaai_jax.engine import compute, compute_fast
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.modes import all_vs_all
+from parfastaai_jax.ops.fused import fused_aji, pair_counts_device
 
 
 @pytest.fixture(scope="module")
@@ -65,11 +65,11 @@ def test_compute_fast_matches_exact(subset1):
 
 
 def test_banded_sn_matches_exact(subset1):
-    """_banded_sn (the TPU fused path's banded block engine, here on the XLA
-    CPU fallback) must reproduce the exact engine's S/N through its banding,
+    """_banded_sn (the fused path's banded block engine, here on the XLA
+    CPU backend) must reproduce the exact engine's S/N through its banding,
     padding, and host assembly — including non-divisible band/chunk sizes
     and distinct denominator columns."""
-    from parfastaai_tpu.engine import _banded_sn
+    from parfastaai_jax.engine import _banded_sn
 
     meta, pres = subset1
     pairs = all_vs_all(meta)
@@ -93,385 +93,23 @@ def test_banded_sn_matches_exact(subset1):
     denom = (
         pres.t[:, dr][:, :, None] + pres.t[:, dc][:, None, :] - cnt
     )
-    want_s = np.where(shared, cnt / denom, 0.0).sum(0)
+    with np.errstate(divide="ignore"):
+        want_s = np.where(shared, cnt / denom, 0.0).sum(0)
     want_n = shared.sum(0)
     np.testing.assert_array_equal(n_r, want_n)
     np.testing.assert_allclose(s_r, want_s, rtol=1e-6)
 
 
-def test_pallas_kernel_interpret_mode():
-    """Run the Pallas kernel in interpreter mode on CPU and cross-check
-    against the XLA fused path (padding path included: G=12 -> 128)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import pallas_fused_aji
-
-    m, t = _rand_presence(P=3, G=12, K=256, seed=1)
-    ref_aji, ref_s, ref_n = fused_aji(jnp.asarray(m), jnp.asarray(t))
-    with pltpu.force_tpu_interpret_mode():
-        aji, s, n = pallas_fused_aji(jnp.asarray(m), jnp.asarray(t))
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(aji), np.asarray(ref_aji), rtol=1e-6)
-
-
-def test_pallas_symmetric_matches_full():
-    """Symmetric (upper-triangle tile) kernel must equal the full-grid kernel
-    on a multi-tile G, including the mirrored lower triangle."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import pallas_fused_aji
-
-    m, t = _rand_presence(P=3, G=300, K=256, seed=2)  # pads 300 -> 384, 3x3 tiles
-    ref_aji, ref_s, ref_n = fused_aji(jnp.asarray(m), jnp.asarray(t))
-    with pltpu.force_tpu_interpret_mode():
-        aji, s, n = pallas_fused_aji(
-            jnp.asarray(m), jnp.asarray(t), tile=128, symmetric=True
-        )
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(aji), np.asarray(ref_aji), rtol=1e-6)
-
-
-def test_pallas_approx_reciprocal_close():
-    """approx=True (VPU approximate reciprocal) must stay within screening
-    tolerance of the exact kernel."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import pallas_fused_aji
-
-    m, t = _rand_presence(P=3, G=24, K=256, seed=3)
-    ref_aji, _, ref_n = fused_aji(jnp.asarray(m), jnp.asarray(t))
-    with pltpu.force_tpu_interpret_mode():
-        aji, _, n = pallas_fused_aji(
-            jnp.asarray(m), jnp.asarray(t), tile=128, approx=True
-        )
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_allclose(np.asarray(aji), np.asarray(ref_aji), rtol=1e-3)
-
-
-def test_auto_tile_symmetric_prefers_triangle_savings():
-    from parfastaai_tpu.ops.pallas_intersect import auto_tile
-
-    assert auto_tile(1024, 1280, symmetric=False) == 1024
-    assert auto_tile(1024, 1280, symmetric=True) == 512
-
-
-def test_pallas_kblocked_kernels_match_xla():
-    """K-blocked kernel variants (4th grid dim + count scratch) must equal
-    the XLA fused paths exactly on N and to f32 tolerance on S — including
-    a K that is not a multiple of the block (zero-pad path)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.fused import fused_sn_block
-    from parfastaai_tpu.ops.pallas_intersect import (
-        _pallas_sn_kb,
-        _pallas_sn_rect_kb,
-        _pallas_sn_sym_kb,
-    )
-
-    from parfastaai_tpu.ops.pallas_intersect import (
-        _pallas_sn,
-        _pallas_sn_rect,
-    )
-
-    m, t = _rand_presence(P=3, G=300, K=1200, seed=8)  # 1200 % 256 != 0
-    gp = 384  # padded to 3 tiles of 128
-    mp = np.pad(m, ((0, 0), (0, gp - 300), (0, 0)))
-    tp = np.pad(t, ((0, 0), (0, gp - 300)))
-    md, td = jnp.asarray(mp), jnp.asarray(tp)
-    _, ref_s, ref_n = fused_aji(md, td)
-    with pltpu.force_tpu_interpret_mode():
-        # The blocked kernels must be BIT-identical to the single-block
-        # kernel (identical count integers, identical divide sequence)…
-        base_s, base_n = _pallas_sn(md, td, tile=128)
-        s_full, n_full = _pallas_sn_kb(md, td, tile=128, k_block=256)
-        s_sym, n_sym = _pallas_sn_sym_kb(md, td, tile=128, k_block=256)
-    for s, n in ((s_full, n_full), (s_sym, n_sym)):
-        np.testing.assert_array_equal(np.asarray(n), np.asarray(base_n))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(base_s))
-    # …and agree with the XLA scan on N exactly (counts are integers).
-    np.testing.assert_array_equal(np.asarray(n_full), np.asarray(ref_n))
-
-    # Rectangular: A x B block; precise=True selects the IEEE divide so the
-    # comparison against the XLA scan is tight.
-    A = 128
-    ma, mb = md[:, :A], md[:, A:]
-    ta, tb = td[:, :A], td[:, A:]
-    ref_s, ref_n = fused_sn_block(ma, mb, ta, tb)
-    with pltpu.force_tpu_interpret_mode():
-        base_s, base_n = _pallas_sn_rect(ma, mb, ta, tb, tile=128)
-        s, n = _pallas_sn_rect_kb(ma, mb, ta, tb, tile=128, k_block=256)
-        s_p, n_p = _pallas_sn_rect_kb(
-            ma, mb, ta, tb, tile=128, k_block=256, precise=True
-        )
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_array_equal(np.asarray(s), np.asarray(base_s))
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(ref_s), rtol=2e-6)
-
-
-def test_pallas_wide_k_routes_to_blocked_path():
-    """K > MAX_K_SINGLE_BLOCK no longer raises: pallas_fused_aji and
-    pallas_fused_sn_block route to the K-blocked kernels and match the XLA
-    scan.  (Packed + wide K remains rejected.)"""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.fused import fused_sn_block
-    from parfastaai_tpu.ops.pallas_intersect import (
-        MAX_K_SINGLE_BLOCK,
-        pallas_fused_aji,
-        pallas_fused_sn_block,
-    )
-
-    K = MAX_K_SINGLE_BLOCK + 300  # forces blocking + a ragged last block
-    m, t = _rand_presence(P=2, G=12, K=K, density=0.05, seed=9)
-    md, td = jnp.asarray(m), jnp.asarray(t)
-    ref_aji, ref_s, ref_n = fused_aji(md, td)
-    with pltpu.force_tpu_interpret_mode():
-        aji, s, n = pallas_fused_aji(md, td, tile=128, precise=True)
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=2e-6)
-
-    ref_s, ref_n = fused_sn_block(md[:, :4], md[:, 4:], td[:, :4], td[:, 4:])
-    with pltpu.force_tpu_interpret_mode():
-        s, n = pallas_fused_sn_block(
-            md[:, :4], md[:, 4:], td[:, :4], td[:, 4:], tile=128,
-            precise=True,
-        )
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=2e-6)
-
-    # packed halves the effective K, so rejection needs K > 2 * MAX.
-    m_wide = jnp.zeros((1, 8, 2 * MAX_K_SINGLE_BLOCK + 2), jnp.int8)
-    t_wide = jnp.zeros((1, 8), jnp.int32)
-    with pytest.raises(ValueError, match="packed"):
-        pallas_fused_aji(m_wide, t_wide, tile=128, packed=True)
-
-
-def test_pallas_packed_exact_match():
-    """packed=True (two presence columns per HBM byte, in-kernel nibble
-    unpack) must produce bit-identical counts -> identical S/N; odd K
-    exercises the pad-one-column path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import pallas_fused_aji
-
-    for G, K, tile in ((12, 256, 128), (300, 255, 128)):
-        m, t = _rand_presence(P=3, G=G, K=K, seed=4)
-        with pltpu.force_tpu_interpret_mode():
-            ref_aji, ref_s, ref_n = pallas_fused_aji(
-                jnp.asarray(m), jnp.asarray(t), tile=tile, packed=False
-            )
-            aji, s, n = pallas_fused_aji(
-                jnp.asarray(m), jnp.asarray(t), tile=tile, packed=True
-            )
-        np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
-
-
-def test_pallas_rect_block_matches_xla():
-    """The rectangular Pallas block (streamed-path building block) equals the
-    XLA-scan fused_sn_block, including the band-padding path."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.fused import fused_sn_block
-    from parfastaai_tpu.ops.pallas_intersect import pallas_fused_sn_block
-
-    rng = np.random.default_rng(5)
-    P, A, B, K = 3, 70, 200, 256
-    m = (rng.random((P, A + B, K)) < 0.2).astype(np.uint8)
-    t = m.sum(axis=2, dtype=np.int32)
-    ma, mb = jnp.asarray(m[:, :A]), jnp.asarray(m[:, A:])
-    ta, tb = jnp.asarray(t[:, :A]), jnp.asarray(t[:, A:])
-    ref_s, ref_n = fused_sn_block(ma, mb, ta, tb)
-    with pltpu.force_tpu_interpret_mode():
-        s, n = pallas_fused_sn_block(ma, mb, ta, tb, tile=128)
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=2e-6)
-
-
-def test_pallas_diag_enumeration_matches_full():
-    """The wrapped-diagonal symmetric variant (kept as a measured
-    alternative) equals the full grid, odd and even tile counts."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import (
-        _pallas_sn,
-        _pallas_sn_sym_diag,
-    )
-
-    for G in (384, 512):  # nt = 3 (odd), 4 (even: duplicated half diagonal)
-        m, t = _rand_presence(P=3, G=G, K=256, seed=6)
-        md, td = jnp.asarray(m), jnp.asarray(t)
-        with pltpu.force_tpu_interpret_mode():
-            ref_s, ref_n = _pallas_sn(md, td, tile=128)
-            s, n = _pallas_sn_sym_diag(md, td, tile=128)
-        np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
-
-
-def test_pallas_two_proteins_per_step_matches():
-    """The two-proteins-per-grid-step experiment variant equals the default
-    triu kernel bit-for-bit, odd P included (zero-protein pad is inert)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import (
-        _pallas_sn_sym,
-        _pallas_sn_sym_2p,
-    )
-
-    for P in (3, 4):
-        m, t = _rand_presence(P=P, G=384, K=256, seed=10)
-        md, td = jnp.asarray(m), jnp.asarray(t)
-        with pltpu.force_tpu_interpret_mode():
-            ref_s, ref_n = _pallas_sn_sym(md, td, tile=128)
-            # Default variant is 'lean' (r4): the pre-clamped-T / min-based
-            # body must stay bit-identical to both the base 2p body and the
-            # one-protein triu kernel.
-            s, n = _pallas_sn_sym_2p(md, td, tile=128)
-            s_b, n_b = _pallas_sn_sym_2p(md, td, tile=128, variant="base")
-        np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
-        np.testing.assert_array_equal(np.asarray(n_b), np.asarray(ref_n))
-        np.testing.assert_array_equal(np.asarray(s_b), np.asarray(ref_s))
-
-
-def test_pallas_2p_pipe_variant_bit_identical():
-    """The r5 cross-step pipelining experiment (_sym_kernel_2p_pipe: step p
-    transforms step p-1's scratch-carried counts) must be bit-identical to
-    the lean default — same terms, same ascending-protein accumulation
-    order — including odd P (zero-protein pad) and the single-step P=2
-    degenerate (no carry at all)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import _pallas_sn_sym_2p
-
-    for P in (2, 3, 6):
-        m, t = _rand_presence(P=P, G=384, K=256, seed=12)
-        md, td = jnp.asarray(m), jnp.asarray(t)
-        with pltpu.force_tpu_interpret_mode():
-            ref_s, ref_n = _pallas_sn_sym_2p(md, td, tile=128)
-            s, n = _pallas_sn_sym_2p(md, td, tile=128, variant="pipe")
-        np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
-
-
-def test_pallas_band_decomposition_matches_full():
-    """The affine band-per-row symmetric variant equals the full grid."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import (
-        _pallas_sn,
-        _pallas_sn_sym_bands,
-    )
-
-    m, t = _rand_presence(P=3, G=384, K=256, seed=7)
-    md, td = jnp.asarray(m), jnp.asarray(t)
-    with pltpu.force_tpu_interpret_mode():
-        ref_s, ref_n = _pallas_sn(md, td, tile=128)
-        s, n = _pallas_sn_sym_bands(md, td, tile=128)
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
-
-
-def test_pallas_2p_fused_variants_match_base():
-    """The r2-item-6 experiment kernels (fused single-RMW update, MXU outer
-    sums) equal the base 2p kernel: n bit-for-bit, s within one f32
-    reassociation (the fused variant adds j0+j1 before accumulating)."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import _pallas_sn_sym_2p
-
-    m, t = _rand_presence(P=4, G=384, K=256, seed=11)
-    md, td = jnp.asarray(m), jnp.asarray(t)
-    with pltpu.force_tpu_interpret_mode():
-        ref_s, ref_n = _pallas_sn_sym_2p(md, td, tile=128, variant="base")
-        for variant in ("fused", "mxu_outer"):
-            s, n = _pallas_sn_sym_2p(md, td, tile=128, variant=variant)
-            np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-            np.testing.assert_allclose(
-                np.asarray(s), np.asarray(ref_s), rtol=2e-6, atol=1e-5
-            )
-
-
-def test_fused_aji_plan_matches_dispatch():
-    """fused_aji_plan (the data bench.py anchors MFU to) agrees with the
-    dispatch pallas_fused_aji actually takes, across every mode boundary."""
-    from parfastaai_tpu.ops.pallas_intersect import (
-        K_BLOCK,
-        MAX_K_SINGLE_BLOCK,
-        fused_aji_plan,
-    )
-
-    cases = [
-        # (p, g, k, symmetric, packed) -> expected mode
-        (3, 384, 256, True, False, "2p"),
-        (3, 384, 256, False, False, "full"),
-        (3, 384, MAX_K_SINGLE_BLOCK // 4 + 128, True, False, "sym"),
-        (3, 384, 256, True, True, "sym"),  # packed never takes 2p
-        (3, 384, MAX_K_SINGLE_BLOCK + 128, True, False, "kb_sym"),
-        (3, 384, MAX_K_SINGLE_BLOCK + 128, False, False, "kb_full"),
-    ]
-    for p, g, k, sym, packed, want in cases:
-        plan = fused_aji_plan(p, g, k, symmetric=sym, packed=packed)
-        assert plan["mode"] == want, (p, g, k, sym, packed, plan)
-        # MAC accounting invariants: padded axes only ever grow, K-blocked
-        # kp is a whole number of kernel K blocks (KERNEL_K_BLOCK — the
-        # r5 measured optimum, 2x over the old K_BLOCK-wide grid), triu
-        # grids cover nt(nt+1)/2.
-        assert plan["gp"] >= g and plan["gp"] % plan["tile"] == 0
-        nt = plan["nt"]
-        assert plan["n_tiles"] == (nt * (nt + 1) // 2 if sym else nt * nt)
-        if plan["mode"].startswith("kb"):
-            from parfastaai_tpu.constants import KERNEL_K_BLOCK
-
-            assert plan["kp"] % KERNEL_K_BLOCK == 0 and plan["kp"] >= k
-        assert plan["mxu_macs"] == (
-            plan["n_tiles"] * plan["tile"] ** 2 * plan["pp"] * plan["kp"]
-        )
-
-
-def test_fused_aji_plan_packed_odd_k_macs():
-    """Packed odd-K pads one column; the plan counts the padded width so
-    bench MFU never exceeds what the MXU really executed."""
-    from parfastaai_tpu.ops.pallas_intersect import fused_aji_plan
-
-    plan = fused_aji_plan(3, 384, 255, symmetric=True, packed=True)
-    assert plan["kp"] == 256
-
-
-def test_pallas_bands_2p_lean_matches():
-    """The r4 affine-bands 2p lean kernel (aliased in-place band outputs)
-    equals the default triu kernel bit-for-bit.  Measured neutral on-chip
-    (kernel docstring); pinned here so the measurement record stays
-    runnable."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    from parfastaai_tpu.ops.pallas_intersect import (
-        _pallas_sn_sym,
-        _pallas_sn_sym_bands_2p,
-    )
-
-    for P in (3, 4):
-        m, t = _rand_presence(P=P, G=384, K=256, seed=12)
-        md, td = jnp.asarray(m), jnp.asarray(t)
-        with pltpu.force_tpu_interpret_mode():
-            ref_s, ref_n = _pallas_sn_sym(md, td, tile=128)
-            s, n = _pallas_sn_sym_bands_2p(md, td, tile=128)
-        np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-        np.testing.assert_array_equal(np.asarray(s), np.asarray(ref_s))
-
-
 def test_banded_sn_symmetric_skips_lower_blocks(monkeypatch):
-    """Symmetric _banded_sn computes only diagonal-and-above blocks (r4):
+    """Symmetric _banded_sn computes only diagonal-and-above blocks:
     10 of 16 at a 4x4 block grid, with the lower triangle filled from the
     transpose — values identical to the full walk."""
-    import parfastaai_tpu.engine as eng
+    import parfastaai_jax.engine as eng
 
     rng = np.random.default_rng(5)
     m = (rng.random((3, 32, 128)) < 0.25).astype(np.uint8)
-    from parfastaai_tpu.etl.database import PresenceData
-    from parfastaai_tpu.types import DBMetaData
+    from parfastaai_jax.etl.database import PresenceData
+    from parfastaai_jax.types import DBMetaData
 
     pres = PresenceData(
         meta=DBMetaData(
@@ -488,13 +126,13 @@ def test_banded_sn_symmetric_skips_lower_blocks(monkeypatch):
     orig = eng._choose_block_engine
 
     def counting(*a, **k):
-        block_sn, pall = orig(*a, **k)
+        block_sn = orig(*a, **k)
 
         def wrapped(*ba, **bk):
             calls.append(1)
             return block_sn(*ba, **bk)
 
-        return wrapped, pall
+        return wrapped
 
     monkeypatch.setattr(eng, "_choose_block_engine", counting)
     ids = np.arange(32, dtype=np.int32)
@@ -522,3 +160,66 @@ def test_banded_sn_symmetric_skips_lower_blocks(monkeypatch):
     np.testing.assert_array_equal(n_sym, (cnt > 0).sum(0))
     np.testing.assert_allclose(s_sym, j.sum(0), rtol=1e-6)
     np.testing.assert_array_equal(s_sym, s_sym.T)  # transpose fill exact
+
+
+def _rand_block(P, A, B, K, density=0.3, seed=0):
+    rng = np.random.default_rng(seed)
+    ma = (rng.random((P, A, K)) < density).astype(np.int8)
+    mb = (rng.random((P, B, K)) < density).astype(np.int8)
+    return ma, mb, ma.sum(2, dtype=np.int32), mb.sum(2, dtype=np.int32)
+
+
+def _f64_sn(ma, mb, ta, tb):
+    cnt = np.einsum(
+        "pak,pbk->pab", ma.astype(np.float64), mb.astype(np.float64)
+    )
+    denom = ta[:, :, None] + tb[:, None, :] - cnt
+    with np.errstate(divide="ignore", invalid="ignore"):
+        j = np.where(cnt > 0, cnt / denom, 0.0)
+    return j.sum(0), (cnt > 0).sum(0)
+
+
+@pytest.mark.parametrize(
+    "P,A,B,K", [(3, 32, 32, 128), (4, 37, 21, 64), (2, 16, 48, 100),
+                (2, 16, 16, 2048)]
+)
+def test_fused_sn_block_matches_f64_reference(P, A, B, K):
+    """Ragged band shapes and widths, up to a wide K: N exact, S within the
+    f32 sum of P terms each at most 1."""
+    from parfastaai_jax.ops.fused import fused_sn_block
+
+    ma, mb, ta, tb = _rand_block(P, A, B, K, seed=P + A + K)
+    s, n = fused_sn_block(ma, mb, ta, tb)
+    s64, n64 = _f64_sn(ma, mb, ta, tb)
+    assert s.shape == (A, B) and n.shape == (A, B)
+    np.testing.assert_array_equal(np.asarray(n), n64)
+    np.testing.assert_allclose(np.asarray(s), s64, rtol=0, atol=P * 2**-24)
+
+
+def test_fused_sn_block_empty_rows_give_zero():
+    """All-zero genomes (the engines' band padding) contribute s == n == 0
+    and no 0/0 NaN leaks through the select."""
+    from parfastaai_jax.ops.fused import fused_sn_block
+
+    ma, mb, ta, tb = _rand_block(2, 16, 16, 32)
+    ma[:, 3] = 0
+    ta[:, 3] = 0
+    s, n = fused_sn_block(ma, mb, ta, tb)
+    assert np.isfinite(np.asarray(s)).all()
+    assert not np.asarray(s)[3].any() and not np.asarray(n)[3].any()
+
+
+def test_jaccard_term_follows_exact_path_below_cnt():
+    """Swapped (compat) denominators can fall to or below cnt; the device
+    term is then what the f64 finish computes (inf, negative), not a
+    clamped value, and cnt == 0 stays 0 even over a zero denominator."""
+    import jax
+
+    from parfastaai_jax.ops.fused import _jaccard
+
+    cnt = np.array([3, 3, 3, 0, 0], np.int32)
+    denom = np.array([6, 0, -2, 0, 5], np.int32)
+    got = np.asarray(jax.jit(_jaccard)(cnt, denom))
+    np.testing.assert_array_equal(
+        got, np.array([0.5, np.inf, -1.5, 0.0, 0.0], np.float32)
+    )

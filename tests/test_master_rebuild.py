@@ -14,22 +14,22 @@ import sqlite3
 import numpy as np
 import pytest
 
-from parfastaai_tpu.engine import compute
-from parfastaai_tpu.etl import goldens
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.etl.derive import (
+from parfastaai_jax.engine import compute
+from parfastaai_jax.etl import goldens as golden_io
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.etl.derive import (
     derive_pair_extents,
     derive_single,
     derive_thread_slabs,
 )
-from parfastaai_tpu.io.csv_writer import write_aji_csv
-from parfastaai_tpu.modes import all_vs_all, query_subset
-from parfastaai_tpu.tools.rebuild_master_db import (
+from parfastaai_jax.io.csv_writer import write_aji_csv
+from parfastaai_jax.modes import all_vs_all, query_subset
+from parfastaai_jax.tools.rebuild_master_db import (
     genome_names_from_csv_header,
     protein_names_from_db,
     rebuild_master_db,
 )
-from parfastaai_tpu.tools.subset_db import build_subset_db
+from parfastaai_jax.tools.subset_db import build_subset_db
 
 # The master's 80th protein is absent from every bundled subset DB; its name
 # and last-place DISTINCT position come from the reference's own fixture
@@ -38,16 +38,16 @@ EXTRA_PROTEIN = "PF01139.17"
 
 
 @pytest.fixture(scope="session")
-def master_db(tmp_path_factory, data_dir, subset1_db, subset2_db, combo12_db):
+def master_db(tmp_path_factory, goldens, subset1_db, subset2_db, combo12_db):
     path = str(tmp_path_factory.mktemp("master") / "xanthodb_rebuilt.db")
     names = genome_names_from_csv_header(
-        f"{data_dir}/xanthodb_aji_matrix_wheader.csv"
+        f"{goldens}/xanthodb_aji_matrix_wheader.csv"
     )
     prots = protein_names_from_db(subset1_db) + [EXTRA_PROTEIN]
     rebuild_master_db(
         path,
-        f"{data_dir}/xanthodb_f_array.bin",
-        f"{data_dir}/xanthodb_lc_array.bin",
+        f"{goldens}/xanthodb_f_array.bin",
+        f"{goldens}/xanthodb_lc_array.bin",
         names,
         prots,
         donor_dbs=[subset1_db, subset2_db, combo12_db],
@@ -71,41 +71,41 @@ def test_metadata(master):
     assert pres.m.shape[:2] == (80, 20)
 
 
-def test_t_matrix_golden(master_db, data_dir):
+def test_t_matrix_golden(master_db, goldens):
     db = SCPDatabase(master_db)
     t = db.load_t_matrix()
     db.close()
-    golden = goldens.read_dmatrix_i32(f"{data_dir}/xanthodb_t_matrix.bin")
+    golden = golden_io.read_dmatrix_i32(f"{goldens}/xanthodb_t_matrix.bin")
     np.testing.assert_array_equal(t, golden)
 
 
-def test_lc_lp_f_roundtrip(master_db, data_dir):
+def test_lc_lp_f_roundtrip(master_db, goldens):
     """Re-deriving the reference arrays from the rebuilt DB reproduces the
     goldens they were built from."""
     db = SCPDatabase(master_db)
     lc, lp, f, e = derive_single(db)
     db.close()
     np.testing.assert_array_equal(
-        lc, goldens.read_i32_vector(f"{data_dir}/xanthodb_lc_array.bin")
+        lc, golden_io.read_i32_vector(f"{goldens}/xanthodb_lc_array.bin")
     )
     np.testing.assert_array_equal(
-        lp, goldens.read_i32_vector(f"{data_dir}/xanthodb_lp_array.bin")
+        lp, golden_io.read_i32_vector(f"{goldens}/xanthodb_lp_array.bin")
     )
     np.testing.assert_array_equal(
-        f, goldens.read_pair_vector(f"{data_dir}/xanthodb_f_array.bin")
+        f, golden_io.read_pair_vector(f"{goldens}/xanthodb_f_array.bin")
     )
     # The sorted E golden itself is stripped, but its recorded size survives
     # in the 8-thread slab layout (sizes sum to |E|).
-    e_size = goldens.read_i32_vector(f"{data_dir}/xanthodb_e_size.bin")
+    e_size = golden_io.read_i32_vector(f"{goldens}/xanthodb_e_size.bin")
     assert len(e) == int(e_size.sum())
 
 
-def test_aji_jac_bit_for_bit(master, data_dir):
+def test_aji_jac_bit_for_bit(master, goldens):
     meta, pres = master
     pairs = all_vs_all(meta)
     res = compute(pres, pairs)
-    jac = goldens.read_jac_vector(f"{data_dir}/xanthodb_jac.bin")
-    aji = goldens.read_f64_vector(f"{data_dir}/xanthodb_aji.bin")
+    jac = golden_io.read_jac_vector(f"{goldens}/xanthodb_jac.bin")
+    aji = golden_io.read_f64_vector(f"{goldens}/xanthodb_aji.bin")
     assert res.n_pairs == 190
     np.testing.assert_array_equal(res.genome_a, jac["genome_a"])
     np.testing.assert_array_equal(res.genome_b, jac["genome_b"])
@@ -114,27 +114,27 @@ def test_aji_jac_bit_for_bit(master, data_dir):
     np.testing.assert_array_equal(res.aji, aji)  # exact f64
 
 
-def test_csv_byte_equal(master, data_dir, tmp_path):
+def test_csv_byte_equal(master, goldens, tmp_path):
     meta, pres = master
     pairs = all_vs_all(meta)
     res = compute(pres, pairs)
     out = str(tmp_path / "xanthodb.csv")
     write_aji_csv(out, pairs, res.aji)
     assert filecmp.cmp(
-        out, f"{data_dir}/xanthodb_aji_matrix_wheader.csv", shallow=False
+        out, f"{goldens}/xanthodb_aji_matrix_wheader.csv", shallow=False
     )
 
 
-def test_query_subset_goldens(master, data_dir, tmp_path):
+def test_query_subset_goldens(master, goldens, tmp_path):
     """The 5-query run (qsub_test_input.txt): JAC/AJI bins and the output CSV,
     all bit-for-bit."""
     meta, pres = master
-    with open(f"{data_dir}/qsub_test_input.txt") as fp:
+    with open(f"{goldens}/qsub_test_input.txt") as fp:
         queries = fp.read().split()
     pairs = query_subset(meta, queries)
     res = compute(pres, pairs)
-    jac = goldens.read_jac_vector(f"{data_dir}/xdb_qry_subset_jac.bin")
-    aji = goldens.read_f64_vector(f"{data_dir}/xdb_qry_subset_aji.bin")
+    jac = golden_io.read_jac_vector(f"{goldens}/xdb_qry_subset_jac.bin")
+    aji = golden_io.read_f64_vector(f"{goldens}/xdb_qry_subset_aji.bin")
     assert res.n_pairs == 85  # 5*15 + C(5,2)
     np.testing.assert_array_equal(res.genome_a, jac["genome_a"])
     np.testing.assert_array_equal(res.genome_b, jac["genome_b"])
@@ -145,11 +145,11 @@ def test_query_subset_goldens(master, data_dir, tmp_path):
     out = str(tmp_path / "qsub.csv")
     write_aji_csv(out, pairs, res.aji)
     assert filecmp.cmp(
-        out, f"{data_dir}/qsub_test_output_matrix_wheader.csv", shallow=False
+        out, f"{goldens}/qsub_test_output_matrix_wheader.csv", shallow=False
     )
 
 
-def test_pair_extents_golden(master_db, data_dir):
+def test_pair_extents_golden(master_db, goldens):
     """Per-pair inclusive [start, end] extents in sorted E match the
     xanthodb_gpe_starts/ends goldens (findEBlockExtents,
     algorithm_impl.hpp:123-219)."""
@@ -165,25 +165,25 @@ def test_pair_extents_golden(master_db, data_dir):
 
     starts, ends = derive_pair_extents(e, g * (g - 1) // 2, slot)
     np.testing.assert_array_equal(
-        starts, goldens.read_i32_vector(f"{data_dir}/xanthodb_gpe_starts.bin")
+        starts, golden_io.read_i32_vector(f"{goldens}/xanthodb_gpe_starts.bin")
     )
     np.testing.assert_array_equal(
-        ends, goldens.read_i32_vector(f"{data_dir}/xanthodb_gpe_ends.bin")
+        ends, golden_io.read_i32_vector(f"{goldens}/xanthodb_gpe_ends.bin")
     )
 
 
-def test_thread_slab_golden(data_dir):
+def test_thread_slab_golden(goldens):
     """The recorded 8-thread E-slab layout (constructE's weighted tetramer
     partition, ds_helper.hpp:167-201 + 362-421) — derivable from the F/Lc
     goldens alone."""
-    lc = goldens.read_i32_vector(f"{data_dir}/xanthodb_lc_array.bin")
-    f = goldens.read_pair_vector(f"{data_dir}/xanthodb_f_array.bin")
+    lc = golden_io.read_i32_vector(f"{goldens}/xanthodb_lc_array.bin")
+    f = golden_io.read_pair_vector(f"{goldens}/xanthodb_f_array.bin")
     starts, sizes = derive_thread_slabs(lc, f, n_threads=8)
     np.testing.assert_array_equal(
-        starts, goldens.read_i32_vector(f"{data_dir}/xanthodb_e_starts.bin")
+        starts, golden_io.read_i32_vector(f"{goldens}/xanthodb_e_starts.bin")
     )
     np.testing.assert_array_equal(
-        sizes, goldens.read_i32_vector(f"{data_dir}/xanthodb_e_size.bin")
+        sizes, golden_io.read_i32_vector(f"{goldens}/xanthodb_e_size.bin")
     )
 
 

@@ -3,7 +3,7 @@
 Launches the actual CLI in two OS processes (4 virtual CPU devices each,
 8 global) against a single-process 8-device run of the same mesh; the merged
 CSV must be byte-identical, and only process 0 may write output files.
-The TPU-native analogue of the reference's shared-memory merge
+The multi-process analogue of the reference's shared-memory merge
 (algorithm_impl.hpp:295-322) — here the merge is psum/allgather collectives
 plus primary-gated IO (parallel/distributed.py)."""
 
@@ -53,7 +53,7 @@ def _run_pair(cli_args_for, timeout=240):
         )
         procs.append(
             subprocess.Popen(
-                [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet"]
+                [sys.executable, "-m", "parfastaai_jax.cli", "--quiet"]
                 + cli_args_for(pid),
                 env=env,
                 cwd=REPO,
@@ -64,7 +64,7 @@ def _run_pair(cli_args_for, timeout=240):
 
 def _run_single(cli_args, timeout=240):
     return subprocess.run(
-        [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet"] + cli_args,
+        [sys.executable, "-m", "parfastaai_jax.cli", "--quiet"] + cli_args,
         env=_env(8),
         cwd=REPO,
         timeout=timeout,
@@ -82,7 +82,7 @@ def _run_single(cli_args, timeout=240):
          "--col-chunk", "5"],
         # Mesh-parallel banded exact: every process joins the count
         # dispatch + gather collectives; only the primary f64-finishes and
-        # writes (engine._mesh_count_engine; VERDICT r4 missing #1).
+        # writes (engine._mesh_count_engine).
         ["--streamed", "--exact", "--mesh", "4,2", "--band", "4",
          "--col-chunk", "5"],
     ],
@@ -108,7 +108,7 @@ def test_two_process_matches_single(combo12_db, tmp_path, mode_args):
 
 
 def test_staged_mesh_meta_only_broadcast(combo12_db, tmp_path):
-    """Staged-mesh runs broadcast metadata + T ONLY (VERDICT r4 missing #2):
+    """Staged-mesh runs broadcast metadata + T ONLY:
     the non-primary never receives the presence tensor — its PresenceData.m
     is a MetaOnlyM stub that RAISES on any data access, so a 0 exit plus a
     byte-identical CSV proves every slab byte arrived on demand through the
@@ -135,7 +135,7 @@ def test_staged_mesh_meta_only_broadcast(combo12_db, tmp_path):
         out = two if pid == 0 else tmp_path / "np.csv"
         procs.append(
             subprocess.Popen(
-                [sys.executable, "-m", "parfastaai_tpu.cli",
+                [sys.executable, "-m", "parfastaai_jax.cli",
                  combo12_db, str(out)] + mode_args,
                 env=env,
                 cwd=REPO,
@@ -149,7 +149,7 @@ def test_staged_mesh_meta_only_broadcast(combo12_db, tmp_path):
     assert "metadata + T only" in out0, out0
     one = tmp_path / "one.csv"
     single = subprocess.run(
-        [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet",
+        [sys.executable, "-m", "parfastaai_jax.cli", "--quiet",
          combo12_db, str(one)] + mode_args,
         env=_env(8, {"PARFASTAAI_FORCE_DEVICE": "1"}),
         cwd=REPO,
@@ -177,7 +177,7 @@ def test_two_process_exact_mesh_matches_dense(combo12_db, tmp_path):
 
 
 def test_nonprimary_never_opens_db(combo12_db, tmp_path):
-    """Single-reader ETL (VERDICT r2 item 7): the non-primary process gets a
+    """Single-reader ETL: the non-primary process gets a
     NONEXISTENT database path — if it ever tried to open the DB it would
     fail, so success + a byte-identical CSV proves metadata and presence
     arrived via broadcast, not a redundant per-process ETL."""
@@ -252,7 +252,7 @@ def test_broadcast_presence_chunked(combo12_db, tmp_path):
         out = str(two) if pid == 0 else str(tmp_path / "np.csv")
         procs.append(
             subprocess.Popen(
-                [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet",
+                [sys.executable, "-m", "parfastaai_jax.cli", "--quiet",
                  db, out, "--mesh", "4,2"],
                 env=env,
                 cwd=REPO,
@@ -298,7 +298,7 @@ def test_divergent_dispatch_calibration_cannot_deadlock(
         out = two if pid == 0 else other
         procs.append(
             subprocess.Popen(
-                [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet",
+                [sys.executable, "-m", "parfastaai_jax.cli", "--quiet",
                  combo12_db, str(out)] + mode_args,
                 env=env,
                 cwd=REPO,
@@ -347,7 +347,7 @@ def test_primary_worker_fault_aborts_whole_pod(
         out = tmp_path / f"out{pid}.csv"
         procs.append(
             subprocess.Popen(
-                [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet",
+                [sys.executable, "-m", "parfastaai_jax.cli", "--quiet",
                  combo12_db, str(out)] + mode_args,
                 env=env,
                 cwd=REPO,
@@ -393,7 +393,7 @@ def test_divergent_mirror_budget_cannot_deadlock(combo12_db, tmp_path):
             out = two if pid == 0 else other
             procs.append(
                 subprocess.Popen(
-                    [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet",
+                    [sys.executable, "-m", "parfastaai_jax.cli", "--quiet",
                      combo12_db, str(out)] + mode_args,
                     env=env,
                     cwd=REPO,

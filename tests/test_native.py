@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from parfastaai_tpu.native import (
+from parfastaai_jax.native import (
     get_lib,
     native_jaccard_finish,
     native_unpack_presence,
@@ -65,8 +65,8 @@ def test_unpack_presence_matches_numpy():
 
 
 def test_format_row_byte_identical_to_python():
-    from parfastaai_tpu.io.fmtfloat import format_double
-    from parfastaai_tpu.native import native_format_row
+    from parfastaai_jax.io.fmtfloat import format_double
+    from parfastaai_jax.native import native_format_row
 
     rng = np.random.default_rng(42)
     vals = np.concatenate(
@@ -86,17 +86,17 @@ def test_format_row_byte_identical_to_python():
 
 
 @pytest.mark.parametrize("which", ["subset1", "subset2"])
-def test_native_etl_matches_python(which, data_dir):
+def test_native_etl_matches_python(which, subset1_db, subset2_db):
     """The fused C++ SQLite ETL (pfaai_sqlite.cpp) must produce exactly the
     tensors the stdlib-sqlite3 path builds — m, t, widths, tetramer_ids all
     array-equal (same queries through the same C library)."""
     import os
 
-    import parfastaai_tpu.native as nat
-    from parfastaai_tpu.etl.database import SCPDatabase
-    from parfastaai_tpu.native import native_load_presence
+    import parfastaai_jax.native as nat
+    from parfastaai_jax.etl.database import SCPDatabase
+    from parfastaai_jax.native import native_load_presence
 
-    path = f"{data_dir}/xdb_{which}.db"
+    path = {"subset1": subset1_db, "subset2": subset2_db}[which]
     db = SCPDatabase(path)
     res = native_load_presence(
         path, db.meta.protein_set, len(db.meta.genome_set)
@@ -120,19 +120,18 @@ def test_native_etl_matches_python(which, data_dir):
         np.testing.assert_array_equal(a, b)
 
 
-def test_native_etl_rejects_corrupt_db(tmp_path):
+def test_native_etl_rejects_corrupt_db(subset1_db, tmp_path):
     """A genome id outside [0, G) must surface as PFAAIError, not memory
     corruption: the native loader returns an error, the Python fallback
     raises the taxonomy error (same behavior as without the native lib)."""
     import shutil
     import sqlite3 as sq
 
-    from parfastaai_tpu.etl.database import SCPDatabase
-    from parfastaai_tpu.types import PFAAIError
+    from parfastaai_jax.etl.database import SCPDatabase
+    from parfastaai_jax.types import PFAAIError
 
-    src = "/root/reference/data/xdb_subset1.db"
     bad = tmp_path / "corrupt.db"
-    shutil.copy(src, bad)
+    shutil.copy(subset1_db, bad)
     conn = sq.connect(bad)
     prot = conn.execute("SELECT DISTINCT SCP_acc FROM scp_data").fetchone()[0]
     tet = conn.execute(
@@ -150,17 +149,19 @@ def test_native_etl_rejects_corrupt_db(tmp_path):
     db.close()
 
 
-def test_engine_uses_native_and_stays_bit_exact(subset1_db, data_dir):
+def test_engine_uses_native_and_stays_bit_exact(subset1_db):
     """End-to-end: with the native finish active, AJI must still equal the
-    reference golden bit-for-bit."""
-    from parfastaai_tpu.engine import compute
-    from parfastaai_tpu.etl.database import SCPDatabase
-    from parfastaai_tpu.etl.goldens import read_f64_vector
-    from parfastaai_tpu.modes import all_vs_all
+    plain f64 oracle (tests/oracle.py) bit-for-bit."""
+    from oracle import aji_matrix
+
+    from parfastaai_jax.engine import compute
+    from parfastaai_jax.etl.database import SCPDatabase
+    from parfastaai_jax.modes import all_vs_all
 
     db = SCPDatabase(subset1_db)
     pres = db.load_presence()
     db.close()
-    result = compute(pres, all_vs_all(db.meta))
-    golden = read_f64_vector(f"{data_dir}/xdb_subset1_aji.bin")
-    np.testing.assert_array_equal(result.aji, golden)
+    pairs = all_vs_all(db.meta)
+    result = compute(pres, pairs)
+    want = aji_matrix(subset1_db)[pairs.db_a, pairs.db_b]
+    np.testing.assert_array_equal(result.aji, want)

@@ -8,10 +8,10 @@ f64 in the same operation order => bit-for-bit equality with the engine."""
 import numpy as np
 import pytest
 
-from parfastaai_tpu.engine import compute, jaccard_finish
-from parfastaai_tpu.etl.database import PresenceData
-from parfastaai_tpu.modes import PairSpace
-from parfastaai_tpu.types import DBMetaData
+from parfastaai_jax.engine import compute, jaccard_finish
+from parfastaai_jax.etl.database import PresenceData
+from parfastaai_jax.modes import PairSpace
+from parfastaai_jax.types import DBMetaData
 
 
 def _random_presence(P, G, K, density, seed):

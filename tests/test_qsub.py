@@ -1,20 +1,19 @@
 """Query-subset mode semantics.
 
-The bundled query-subset goldens (xdb_qry_subset_*.bin) require the stripped
-master DB, so this file validates the mode by cross-consistency instead:
-Jaccard of a genome pair depends only on that pair's tetramer sets, so the
-query-subset AJI values over the combo12 DB must equal the corresponding
-all-vs-all values over the same DB — and, for pairs inside subset1, the
-subset1 all-vs-all goldens."""
+The reference's query-subset goldens (xdb_qry_subset_*.bin) require its
+stripped master DB, so this file validates the mode by cross-consistency
+instead: Jaccard of a genome pair depends only on that pair's tetramer
+sets, so the query-subset AJI values over the combo12 DB must equal the
+corresponding all-vs-all values over the same DB — and, for pairs inside
+subset1, the plain f64 oracle over subset1's own database."""
 
 import numpy as np
 import pytest
 
-from parfastaai_tpu.engine import compute
-from parfastaai_tpu.etl import goldens
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.modes import all_vs_all, query_subset
-from parfastaai_tpu.types import PFAAIError
+from parfastaai_jax.engine import compute
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.modes import all_vs_all, query_subset
+from parfastaai_jax.types import PFAAIError
 
 
 @pytest.fixture(scope="module")
@@ -60,10 +59,13 @@ def test_qsub_pair_layout(combo):
     assert (pairs.mirror_row[:-1] == -1).all() and pairs.mirror_row[-1] == 1
 
 
-def test_qsub_matches_subset1_goldens(combo, data_dir):
-    """Pairs drawn from subset1's genomes give the subset1 all-vs-all AJI."""
+def test_qsub_matches_subset1_goldens(combo, subset1_db):
+    """Pairs drawn from subset1's genomes give the subset1 all-vs-all AJI
+    (the plain f64 oracle over subset1's own database)."""
+    from oracle import aji_matrix
+
     meta, pres = combo
-    s1 = SCPDatabase(f"{data_dir}/xdb_subset1.db")
+    s1 = SCPDatabase(subset1_db)
     s1_names = s1.meta.genome_set
     s1.close()
     name_to_id = {n: i for i, n in enumerate(meta.genome_set)}
@@ -75,13 +77,11 @@ def test_qsub_matches_subset1_goldens(combo, data_dir):
     for a, b, v in zip(res.genome_a, res.genome_b, res.aji):
         aji_by_pair[frozenset((int(a), int(b)))] = v
 
-    golden = goldens.read_f64_vector(f"{data_dir}/xdb_subset1_aji.bin")
-    k = 0
+    want = aji_matrix(subset1_db)
     for i in range(len(s1_names)):
         for j in range(i + 1, len(s1_names)):
             key = frozenset((name_to_id[s1_names[i]], name_to_id[s1_names[j]]))
-            assert aji_by_pair[key] == golden[k]
-            k += 1
+            assert aji_by_pair[key] == want[i, j]
 
 
 def test_qsub_bad_query_rejected(combo):

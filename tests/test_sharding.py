@@ -1,13 +1,13 @@
-"""Multi-chip sharding: N-device mesh result must equal the 1-device result
-(the TPU-era analogue of the reference's thread-count invariance)."""
+"""Multi-device sharding: N-device mesh result must equal the 1-device
+result (the analogue of the reference's thread-count invariance)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from parfastaai_tpu.ops.fused import fused_aji
-from parfastaai_tpu.parallel.mesh import make_mesh, sharded_fused_aji
+from parfastaai_jax.ops.fused import fused_aji
+from parfastaai_jax.parallel.mesh import make_mesh, sharded_fused_aji
 
 
 def _rand_presence(P=8, G=32, K=256, density=0.2, seed=0):
@@ -29,24 +29,6 @@ def test_mesh_matches_single_device(n_rows, n_scp):
     np.testing.assert_allclose(np.asarray(aji), np.asarray(ref_aji), rtol=1e-5)
 
 
-@pytest.mark.parametrize("n_rows,n_scp", [(4, 2), (8, 1)])
-def test_mesh_pallas_interpret_matches_single(n_rows, n_scp, monkeypatch):
-    """The TPU mesh program — the Pallas rectangular kernel INSIDE shard_map
-    (VERDICT r2 item 3) — run in Pallas interpret mode on the virtual CPU
-    mesh, so the per-device program real chips execute is covered by the
-    8-device tests, not just the XLA-scan fallback."""
-    monkeypatch.setenv("PARFASTAAI_PALLAS_INTERPRET", "1")
-    m, t = _rand_presence()
-    mesh = make_mesh(n_rows, n_scp)
-    aji, s, n = sharded_fused_aji(mesh, m, t)
-    ref_aji, ref_s, ref_n = fused_aji(jnp.asarray(m), jnp.asarray(t))
-    np.testing.assert_array_equal(np.asarray(n), np.asarray(ref_n))
-    np.testing.assert_allclose(np.asarray(s), np.asarray(ref_s), rtol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(aji), np.asarray(ref_aji), rtol=1e-5
-    )
-
-
 def test_mesh_shape_validation():
     mesh = make_mesh(8, 1)
     m, t = _rand_presence(G=30)  # 30 not divisible by 8 rows
@@ -64,7 +46,7 @@ def test_sharded_fused_sn_matches_aji_variant():
     aji) must agree exactly with sharded_fused_aji's (s, n) outputs."""
     m, t = _rand_presence(seed=3)
     mesh = make_mesh(4, 2)
-    from parfastaai_tpu.parallel.mesh import sharded_fused_sn
+    from parfastaai_jax.parallel.mesh import sharded_fused_sn
 
     s, n = sharded_fused_sn(mesh, m, t)
     _, ref_s, ref_n = sharded_fused_aji(mesh, m, t)

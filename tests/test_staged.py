@@ -1,5 +1,5 @@
 """Staged (beyond-one-HBM) slab engines: genome capacity bounded by host
-RAM, not device memory (VERDICT r2 item 4; the reference plans the same
+RAM, not device memory (the reference plans the same
 memory batching in doc/pfaai_algorithm.tex:218-224 but never implements it).
 
 The staged engines gather (band x K) presence slabs host-side and upload
@@ -12,7 +12,7 @@ programs and accumulation order)."""
 
 import numpy as np
 
-from parfastaai_tpu.engine import (
+from parfastaai_jax.engine import (
     _use_staged,
     compute,
     compute_fast,
@@ -20,9 +20,9 @@ from parfastaai_tpu.engine import (
     compute_streamed_exact,
     presence_device_bytes,
 )
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.io.csv_writer import write_aji_csv
-from parfastaai_tpu.modes import all_vs_all, query_target
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.io.csv_writer import write_aji_csv
+from parfastaai_jax.modes import all_vs_all, query_target
 
 
 def _load(db_path):
@@ -79,7 +79,7 @@ def test_staged_fast_qt_compat_denominators(subset1_db, subset2_db, tmp_path,
     """The staged engine honors per-axis denominator columns (the two-DB
     compat T-swap) exactly like the resident one."""
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
-    from parfastaai_tpu.etl.database import QueryTargetDatabase
+    from parfastaai_jax.etl.database import QueryTargetDatabase
 
     db = QueryTargetDatabase(subset1_db, subset2_db)
     pres = db.load_presence()
@@ -112,8 +112,8 @@ def test_use_staged_resolution(subset1_db, monkeypatch):
 def test_staged_env_zero_forces_resident(subset1_db, monkeypatch):
     """PARFASTAAI_STAGED=0 must force the RESIDENT engine (plain string
     truthiness read '0' as staged-on — the opposite of the request)."""
-    from parfastaai_tpu.engine import _use_staged
-    from parfastaai_tpu.etl.database import SCPDatabase
+    from parfastaai_jax.engine import _use_staged
+    from parfastaai_jax.etl.database import SCPDatabase
 
     db = SCPDatabase(subset1_db)
     pres = db.load_presence()
@@ -135,7 +135,7 @@ def test_cli_staged_combination_guards(subset1_db, tmp_path):
     out = str(tmp_path / "out.csv")
     for extra in (["--staged"], ["--staged", "--mesh", "1,1"]):
         r = subprocess.run(
-            [sys.executable, "-m", "parfastaai_tpu.cli", "--quiet",
+            [sys.executable, "-m", "parfastaai_jax.cli", "--quiet",
              subset1_db, out] + extra,
             capture_output=True,
         )
@@ -150,7 +150,7 @@ def test_split_plan_bounds_slab_bytes(monkeypatch):
     dispatch's in-flight generation."""
     import numpy as np
 
-    from parfastaai_tpu.engine import _split_plan
+    from parfastaai_jax.engine import _split_plan
 
     monkeypatch.setenv("PARFASTAAI_SLAB_BYTES", str(10_000))
     plan = [(np.arange(7, dtype=np.int32), 128),
@@ -167,7 +167,7 @@ def test_split_plan_bounds_slab_bytes(monkeypatch):
 
 
 def _mesh(n_rows, n_scp):
-    from parfastaai_tpu.parallel.mesh import make_mesh
+    from parfastaai_jax.parallel.mesh import make_mesh
 
     return make_mesh(n_rows, n_scp)
 
@@ -175,7 +175,7 @@ def _mesh(n_rows, n_scp):
 def test_staged_mesh_streamed_matches_single_device_staged(
     subset1_db, tmp_path, monkeypatch
 ):
-    """Staged x mesh composition (VERDICT r3 item 1): the streamed-mesh
+    """Staged x mesh composition: the streamed-mesh
     path fed from sharded slab fetches writes a byte-identical CSV to the
     single-device staged run on an 8-virtual-device CPU mesh."""
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
@@ -217,8 +217,8 @@ def test_staged_mesh_qt_denominators(subset1_db, subset2_db, tmp_path,
     """Staged-mesh honors per-axis denominator columns (two-DB compat
     T-swap): CSV equals the single-device staged streamed CSV."""
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
-    from parfastaai_tpu.etl.database import QueryTargetDatabase
-    from parfastaai_tpu.modes import query_target_axes
+    from parfastaai_jax.etl.database import QueryTargetDatabase
+    from parfastaai_jax.modes import query_target_axes
 
     db = QueryTargetDatabase(subset1_db, subset2_db)
     pres = db.load_presence()
@@ -244,7 +244,7 @@ def test_staged_mesh_qt_denominators(subset1_db, subset2_db, tmp_path,
 def test_use_staged_mesh_scales_budget_with_scp(subset1_db, monkeypatch):
     """Auto staging on a mesh triggers against the scp-sharded per-device
     residency, not the whole-tensor figure."""
-    from parfastaai_tpu.engine import _use_staged_mesh
+    from parfastaai_jax.engine import _use_staged_mesh
 
     _, pres = _load(subset1_db)
     per_dev = presence_device_bytes(pres)
@@ -259,8 +259,8 @@ def test_use_staged_mesh_scales_budget_with_scp(subset1_db, monkeypatch):
 
 
 def _synth_presence(g=32, p=4, k=128, seed=0):
-    from parfastaai_tpu.etl.database import PresenceData
-    from parfastaai_tpu.types import DBMetaData
+    from parfastaai_jax.etl.database import PresenceData
+    from parfastaai_jax.types import DBMetaData
 
     rng = np.random.default_rng(seed)
     m = (rng.random((p, g, k)) < 0.3).astype(np.uint8)
@@ -277,10 +277,10 @@ def _synth_presence(g=32, p=4, k=128, seed=0):
 
 
 def test_banded_sn_column_group_traversal_cuts_uploads(monkeypatch):
-    """Reuse-aware staged traversal (VERDICT r3 weak #4): the column-group
+    """Reuse-aware staged traversal: the column-group
     walk re-ships materially fewer slab bytes than the old row-band-major
     walk under the same tight LRU, with identical results."""
-    import parfastaai_tpu.engine as eng
+    import parfastaai_jax.engine as eng
 
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
     # Budget chosen so the LRU holds ~3 slabs (4 KiB each) and the group
@@ -318,7 +318,7 @@ def test_banded_sn_column_group_traversal_cuts_uploads(monkeypatch):
 
 
 def test_staged_col_group_sizing(monkeypatch):
-    from parfastaai_tpu.engine import _staged_col_group
+    from parfastaai_jax.engine import _staged_col_group
 
     pres = _synth_presence()  # per-genome slab bytes = 4 * 128 = 512
     monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "20000")
@@ -329,35 +329,3 @@ def test_staged_col_group_sizing(monkeypatch):
     # Budget too small for even one chunk: degrade to 1, never 0.
     monkeypatch.setenv("PARFASTAAI_HBM_BYTES", "1")
     assert _staged_col_group(pres, 8, 8, 4, True) == 1
-
-
-def test_staged_mesh_pallas_interpret_mode(subset1_db, tmp_path, monkeypatch):
-    """The staged-mesh engine's Pallas-under-shard_map branch (the program
-    real TPUs run) evaluated in interpret mode on the CPU mesh — values
-    must match the XLA-fallback staged-mesh CSV."""
-    monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
-    meta, pres = _load(subset1_db)
-    g = len(meta.genome_set)
-    ids = np.arange(g, dtype=np.int32)
-    names = meta.genome_set
-
-    xla = tmp_path / "xla.csv"
-    compute_streamed(
-        pres, ids, ids, str(xla), names, names, band=4, col_chunk=3,
-        mesh=_mesh(4, 2), staged=True,
-    )
-    monkeypatch.setenv("PARFASTAAI_PALLAS_INTERPRET", "1")
-    pall = tmp_path / "pallas.csv"
-    # Fresh presence: engine caches key on backend+flags, but the slab
-    # store would otherwise reuse XLA-uploaded slabs — a clean object keeps
-    # the two runs independent.
-    _, pres2 = _load(subset1_db)
-    compute_streamed(
-        pres2, ids, ids, str(pall), names, names, band=4, col_chunk=3,
-        mesh=_mesh(4, 2), staged=True,
-    )
-    got = np.genfromtxt(pall, delimiter=",", skip_header=1,
-                        usecols=range(1, g + 1))
-    want = np.genfromtxt(xla, delimiter=",", skip_header=1,
-                         usecols=range(1, g + 1))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

@@ -4,10 +4,10 @@ import csv
 
 import numpy as np
 
-from parfastaai_tpu.engine import compute, compute_streamed
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.io.csv_writer import aji_matrix
-from parfastaai_tpu.modes import all_vs_all
+from parfastaai_jax.engine import compute, compute_streamed
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.io.csv_writer import aji_matrix
+from parfastaai_jax.modes import all_vs_all
 
 
 def _read_csv(path, sep=","):
@@ -88,7 +88,7 @@ def test_streamed_writer_error_propagates(subset1_db, tmp_path, monkeypatch):
     calls = {"n": 0}
     # compute_streamed does `from .io.csv_writer import format_matrix` at
     # call time, so patching the module attribute reaches the writer thread.
-    from parfastaai_tpu.io import csv_writer
+    from parfastaai_jax.io import csv_writer
 
     orig = csv_writer.format_matrix
 
@@ -139,8 +139,8 @@ def test_streamed_symmetric_mirror_byte_identical(
     band/chunk sizes that exercise skipped, straddling, and short blocks."""
     import numpy as np
 
-    from parfastaai_tpu.engine import compute_streamed
-    from parfastaai_tpu.etl.database import SCPDatabase
+    from parfastaai_jax.engine import compute_streamed
+    from parfastaai_jax.etl.database import SCPDatabase
 
     monkeypatch.setenv("PARFASTAAI_FORCE_DEVICE", "1")
     db = SCPDatabase(subset1_db)

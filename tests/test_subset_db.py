@@ -1,30 +1,27 @@
-"""Subset-DB builder (tools/subset_db.py) vs the bundled fixture databases.
+"""Subset-DB builder (tools/subset_db.py) vs the fixture databases.
 
-xdb_subset_combo12.db contains the union of subset1's and subset2's genomes
-(reference data/subset_db.py:282-307), with subset1's four genomes first — so
-building a 4-genome subset of combo12 with subset1's names must reproduce
-xdb_subset1.db's content exactly (the reference derived both from the same
-master with the same remap semantics)."""
+The combo12 fixture contains the union of subset1's and subset2's genomes
+(reference data/subset_db.py:282-307), with subset1's four genomes first —
+so building a 4-genome subset of combo12 with subset1's names must
+reproduce subset1's content exactly (both come from the same master with
+the same remap semantics)."""
 
 import sqlite3
 
 import numpy as np
 import pytest
 
-from parfastaai_tpu.tools.subset_db import build_subset_db
+from parfastaai_jax.tools.subset_db import build_subset_db
 
-SUBSET1_NAMES = [
-    "Xanthomonas_albilineans_GCA_000962915_1.fna.gz",
-    "Xanthomonas_albilineans_GCA_000962945_1.fna.gz",
-    "Xanthomonas_albilineans_GCA_000963065_1.fna.gz",
-    "Xanthomonas_albilineans_GCA_000963195_1.fna.gz",
-]
+@pytest.fixture(scope="module")
+def subset1_names(subset1_db):
+    return [r[0] for r in _rows(subset1_db, "SELECT genome_name FROM genome_metadata")]
 
 
 @pytest.fixture(scope="module")
-def built_subset1(tmp_path_factory, combo12_db):
+def built_subset1(tmp_path_factory, combo12_db, subset1_names):
     dst = tmp_path_factory.mktemp("subsetdb") / "rebuilt_subset1.db"
-    build_subset_db(combo12_db, str(dst), SUBSET1_NAMES)
+    build_subset_db(combo12_db, str(dst), subset1_names)
     return str(dst)
 
 
@@ -55,17 +52,16 @@ def test_all_scp_tables_match(built_subset1, subset1_db):
             assert _rows(built_subset1, q) == _rows(subset1_db, q), tbl
 
 
-def test_engine_on_built_subset_matches_golden(built_subset1, data_dir, tmp_path):
+def test_engine_on_built_subset_matches_golden(
+    built_subset1, subset1_csv, tmp_path
+):
     """End-to-end: run the CLI over the rebuilt subset DB; the AJI CSV must be
-    byte-identical to the reference golden for xdb_subset1."""
-    from parfastaai_tpu.cli import run
+    byte-identical to subset1's golden CSV."""
+    from parfastaai_jax.cli import run
 
     out = tmp_path / "aji.csv"
     assert run([built_subset1, str(out), "--quiet"]) == 0
-    with open(out, "rb") as f, open(
-        f"{data_dir}/xdb_subset1_aji_matrix_wheader.csv", "rb"
-    ) as g:
-        assert f.read() == g.read()
+    assert out.read_bytes() == subset1_csv
 
 
 def test_missing_genome_rejected(combo12_db, tmp_path):
@@ -75,11 +71,11 @@ def test_missing_genome_rejected(combo12_db, tmp_path):
         )
 
 
-def test_refuses_overwrite(combo12_db, tmp_path):
+def test_refuses_overwrite(combo12_db, subset1_names, tmp_path):
     dst = tmp_path / "exists.db"
     dst.write_bytes(b"")
     with pytest.raises(FileExistsError):
-        build_subset_db(combo12_db, str(dst), SUBSET1_NAMES)
+        build_subset_db(combo12_db, str(dst), subset1_names)
 
 
 def test_rebuild_roundtrip_on_synthetic_db(tmp_path):
@@ -90,10 +86,10 @@ def test_rebuild_roundtrip_on_synthetic_db(tmp_path):
 
     import numpy as np
 
-    from parfastaai_tpu.etl.database import SCPDatabase
-    from parfastaai_tpu.etl.derive import derive_single
-    from parfastaai_tpu.tools.rebuild_master_db import rebuild_master_db
-    from parfastaai_tpu.tools.synth_db import generate
+    from parfastaai_jax.etl.database import SCPDatabase
+    from parfastaai_jax.etl.derive import derive_single
+    from parfastaai_jax.tools.rebuild_master_db import rebuild_master_db
+    from parfastaai_jax.tools.synth_db import generate
 
     src = str(tmp_path / "synth.db")
     generate(src, n_genomes=9, n_proteins=5, pool_size=300,

@@ -6,11 +6,11 @@ import sqlite3
 import numpy as np
 import pytest
 
-from parfastaai_tpu.engine import compute
-from parfastaai_tpu.etl.database import SCPDatabase
-from parfastaai_tpu.etl.derive import derive_single
-from parfastaai_tpu.modes import all_vs_all
-from parfastaai_tpu.tools.synth_db import generate
+from parfastaai_jax.engine import compute
+from parfastaai_jax.etl.database import SCPDatabase
+from parfastaai_jax.etl.derive import derive_single
+from parfastaai_jax.modes import all_vs_all
+from parfastaai_jax.tools.synth_db import generate
 
 
 @pytest.fixture(scope="module")
